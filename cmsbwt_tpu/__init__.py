@@ -1,4 +1,4 @@
-"""cmsbwt_tpu — TPU-native BWT of repetitive string collections via
+"""cmsbwt_tpu — JAX BWT of repetitive string collections via
 compressed matching statistics (capabilities of fmasillo/CMS-BWT,
 re-designed for JAX/XLA).
 

@@ -18,7 +18,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cmsbwt_tpu",
         description="BWT of a repetitive string collection via compressed "
-                    "matching statistics against a reference (TPU-native "
+                    "matching statistics against a reference (JAX "
                     "re-implementation of CMS-BWT).")
     p.add_argument("filename",
                    help="file containing the reference path (line 1) and the "
@@ -75,7 +75,7 @@ def main(argv=None) -> int:
         checkpoint_dir=args.checkpoint_dir,
         replicate_reference_rle_quirk=not args.no_rle_quirk,
     )
-    print("==== CMS-BWT (TPU)")
+    print("==== CMS-BWT (JAX)")
     print(f"Input file: {cfg.filename}")
     print(f"Output basename: {cfg.resolved_outname()}")
     print(f"Prefix length: {cfg.prefix_length}")

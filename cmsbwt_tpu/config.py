@@ -1,4 +1,4 @@
-"""Configuration for the CMS-BWT TPU framework.
+"""Configuration for the CMS-BWT JAX framework.
 
 Mirrors the reference CLI contract (``/root/reference/utils.h:8-14`` and
 ``/root/reference/main.cpp:37-70``) while exposing every hard-coded constant of
@@ -42,10 +42,11 @@ class Config:
     write_buffer_bytes: int = 1 << 20      # output write buffer (:943);
                                     # chunk size of the fallback writers
 
-    # --- TPU-native knobs (no reference equivalent) ---
+    # --- device knobs (no reference equivalent) ---
     backend: str = "auto"           # "host", "device", "dense" (joint
                                     # sort), "jump" (head-jumping), "auto"
     lanes: int = 4096               # parallel MS cursors per device
+                                    # (awaits an H100 sweep)
     skip_window: int = 64           # vectorized memcmp window (device/jump)
     dense_block_chars: Optional[int] = None  # None = single joint sort;
                                     # else stream the collection in blocks
@@ -68,10 +69,10 @@ class Config:
                                             # ~/.cache/cmsbwt_tpu/ref_index
     # k-mer absence probe steering backend="auto" (engine/probe.py): below
     # the threshold the collection routes to the native PLCP-skip scan
-    # engine; above it the dense device pipeline wins. Measured crossover
-    # at the 20 Mchar primary shape: native 8.8s vs dense 9.9s at 3% SNP,
-    # 19.8s vs 18.7s at 8% — the engines cross near 5-6% SNP, i.e. a
-    # 24-mer absent fraction around 0.72
+    # engine; above it the dense device pipeline wins. 0.72 is the 24-mer
+    # absent fraction of ~5-6% SNP, where the engines were expected to
+    # cross at the 20 Mchar primary shape; the value awaits an H100
+    # measurement of both engines
     probe_threshold: float = 0.72
     probe_kmer: int = 24
     probe_ref_cap: int = 8 << 20    # skip the probe above this ref size

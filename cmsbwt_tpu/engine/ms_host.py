@@ -2,10 +2,10 @@
 factorizer (ref ``computeMSFactorAt`` CMS-BWT-functions.cpp:45-88, the binary
 searches :94-149, and the per-document driver loop :357-403/:491-556).
 
-The device (JAX/Pallas) kernels in ``cmsbwt_tpu/ops`` are validated against
-this implementation. MS values (pos, len, smaller) at each position are pure
+The device (JAX) scans in ``cmsbwt_tpu/ops`` are validated against this
+implementation. MS values (pos, len, smaller) at each position are pure
 functions of (index, text) — history only accelerates the scan — which is
-what makes the scan block-parallel on TPU.
+what makes the scan block-parallel on a device.
 
 Output arrays over the whole concatenated collection SX (length sn):
 

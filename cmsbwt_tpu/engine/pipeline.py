@@ -161,8 +161,7 @@ def compute_bwt(cfg: Config) -> dict:
                 build_sharded_reference_index)
             index = build_sharded_reference_index(x_aug)
         elif index is None and backend == "device":
-            from ..index.device import (build_device_index,
-                                        build_reference_index_device)
+            from ..index.device import build_device_index
             dindex = build_device_index(x_aug)
             index = _export_device_index(dindex, x_aug)
         elif index is None and backend == "native":
@@ -235,12 +234,6 @@ def compute_bwt(cfg: Config) -> dict:
                                   buffer_bytes=cfg.buffer_gib << 30)
         return _write_outputs(cfg, outname, index, result, timer,
                                backend=backend)
-    if backend == "pallas":
-        raise ValueError(
-            "backend='pallas' was retired: the Mosaic kernel cannot "
-            "compile on this chip (docs/retired_pallas_scan.py, "
-            "docs/pallas_ms_kernel.md); use backend='jump' (device "
-            "range-max descent) or 'dense'")
     if backend == "jump":
         # head-jumping scan (ops/ms_jump): per-PHRASE device work — the
         # low-divergence fast path. Scan result and reference index stay
@@ -249,23 +242,14 @@ def compute_bwt(cfg: Config) -> dict:
         rq = cfg.rle and cfg.replicate_reference_rle_quirk
         lanes = cfg.lanes
         if cfg.backend == "auto" and not _on_accelerator():
-            # auto-resolved CPU jump: the TPU lane default over-subscribes
-            # the element-bound CPU backend (see AUTO_CPU_JUMP_LANES)
+            # auto-resolved CPU jump: the accelerator lane default
+            # over-subscribes the element-bound CPU backend (see
+            # AUTO_CPU_JUMP_LANES)
             lanes = min(lanes, AUTO_CPU_JUMP_LANES)
-        try:
-            with timer.phase("ms_scan"), maybe_jax_trace("ms_scan"):
-                from ..ops.ms_jump import ms_jump_heads
-                jres = ms_jump_heads(x_aug, coll.sx, lanes=lanes,
-                                     window=cfg.skip_window)
-        except Exception as e:
-            # a Mosaic lowering/runtime failure on this platform must not
-            # strand the run — the dense path computes the same answer
-            import sys as _sys
-            from dataclasses import replace as _dc_replace
-            print(f"cmsbwt: {backend} backend failed "
-                  f"({type(e).__name__}: {str(e)[:200]}); "
-                  "falling back to backend=dense", file=_sys.stderr)
-            return compute_bwt(_dc_replace(cfg, backend="dense"))
+        with timer.phase("ms_scan"), maybe_jax_trace("ms_scan"):
+            from ..ops.ms_jump import ms_jump_heads
+            jres = ms_jump_heads(x_aug, coll.sx, lanes=lanes,
+                                 window=cfg.skip_window)
         # merge routing: explicit cfg wins, then the CMSBWT_MERGE_BACKEND
         # env override, then auto = host only for the accelerator SARS
         # shape (the scan result is device-resident here, so auto's
@@ -339,19 +323,8 @@ def compute_bwt(cfg: Config) -> dict:
             block_chars = max(min(-(-coll.sn // ndev),
                                   cfg.chunk_cap_bytes // 8), 1 << 16)
         if block_chars is None:
-            # HBM guard: the joint sort peaks at ~260 bytes/char (the
-            # ~23-level rank history is ~92 of them, plus the doubling
-            # scan's carry and multi-operand sort temporaries) — above
-            # the chip's budget the scan must stream in blocks or the run
-            # dies with RESOURCE_EXHAUSTED (observed at the 100 Mchar
-            # ecoli config on a 16 GB v5e)
-            from ..utils.jaxcache import bucket_size as _bs
-            budget = float(os.environ.get("CMSBWT_HBM_GB", "13.5")) * 2**30
-            m_est = _bs(len(x_aug)) + _bs(coll.sn + 1)
-            if 260 * m_est > budget:
-                block_chars = max(
-                    8 << 20,
-                    int((budget / 260 - _bs(len(x_aug))) * 0.6))
+            block_chars = _guard_block_chars(len(x_aug), coll.sn,
+                                             _device_memory_budget())
         if sn_big:
             # int64-safe route: per-block scans stay under the int32 bound
             # while global head_t is assembled int64 on the host
@@ -604,7 +577,7 @@ def _write_outputs(cfg: Config, outname: str, index: ReferenceIndex,
 
 # Below this many collection chars, the host scan beats the dense device
 # pipeline even with a warm compile cache (dispatch/transfer overheads
-# dominate; measured crossover is around a few Mchars on v5e).
+# dominate). The value awaits an H100 measurement of the crossover.
 AUTO_DENSE_MIN_CHARS = 2_000_000
 
 
@@ -625,11 +598,52 @@ def _giant_threshold() -> int:
 
 
 def _on_accelerator() -> bool:
-    try:
-        import jax
-        return any(dv.platform != "cpu" for dv in jax.devices())
-    except Exception:
-        return False
+    """True when the process's devices are accelerators. A JAX that cannot
+    initialise its backend raises here: a device failure must never turn
+    into a CPU run."""
+    import jax
+    return any(dv.platform != "cpu" for dv in jax.devices())
+
+
+# The dense scan + device merge peak at about this many device bytes per
+# bucketed symbol of the joint string (the ~23-level rank history, the
+# doubling scan's carry and the multi-operand sort temporaries): measured
+# 198.0 on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase A:
+# 22.0 GB peak over 111 M symbols, 100 Mchars of collection).
+BYTES_PER_SYMBOL = 198
+# Share of the device's free bytes the guard lets the scan plan for: the
+# figure above is one reading at one size, and how the peak scales towards
+# the unblocked limit is not measured yet.
+GUARD_HEADROOM = 0.85
+
+
+def _device_memory_budget() -> float | None:
+    """Device bytes the dense scan may use: ``CMSBWT_HBM_GB`` when set,
+    else GUARD_HEADROOM of the device's ``bytes_limit`` less what the
+    process already holds there (``bytes_in_use``); None when the device
+    reports no limit (the CPU backend), which forces no blocking."""
+    env = os.environ.get("CMSBWT_HBM_GB")
+    if env:
+        return float(env) * 2**30
+    import jax
+    stats = jax.devices()[0].memory_stats()
+    if not stats or "bytes_limit" not in stats:
+        return None
+    free = stats["bytes_limit"] - stats.get("bytes_in_use", 0)
+    return GUARD_HEADROOM * float(free)
+
+
+def _guard_block_chars(n: int, sn: int, budget: float | None) -> int | None:
+    """Block size for the dense scan, or None to scan unblocked: above the
+    budget the scan streams in blocks, or the run dies with
+    RESOURCE_EXHAUSTED."""
+    from ..utils.jaxcache import bucket_size
+    if budget is None:
+        return None
+    if BYTES_PER_SYMBOL * (bucket_size(n) + bucket_size(sn + 1)) <= budget:
+        return None
+    return max(8 << 20,
+               int((budget / BYTES_PER_SYMBOL - bucket_size(n)) * 0.6))
 
 
 def _resolve_merge_backend(merge_backend: str, n: int | None = None,
@@ -643,29 +657,24 @@ def _resolve_merge_backend(merge_backend: str, n: int | None = None,
     Small-reference / huge-collection workloads (SARS-like pangenomes:
     ~30 Kbp ref, tens of Mchars of documents) also route to the host
     engine on accelerators: tail crediting there is dominated by per-PAIR
-    volume (P ~ sn), and the measured OpenMP walk beats the device
-    sorted-join at that shape (1.4 s vs ~3 s at 90 Mchars/30 Kbp)."""
+    volume (P ~ sn), where the OpenMP walk is expected to beat the device
+    sorted join. The shape rule awaits an H100 measurement."""
     if merge_backend != "auto":
         return merge_backend
-    import os
     forced = os.environ.get("CMSBWT_MERGE_BACKEND")
     if forced in ("host", "device"):
         return forced
-    try:
-        import jax
-        if any(dv.platform != "cpu" for dv in jax.devices()):
-            if (n is not None and sn is not None
-                    and n < 1_000_000 and sn > 16 * max(n, 1)):
-                return "host"
-            return "device"
-    except Exception:
-        pass
+    if _on_accelerator():
+        if (n is not None and sn is not None
+                and n < 1_000_000 and sn > 16 * max(n, 1)):
+            return "host"
+        return "device"
     return "host"
 
 
 # CPU XLA is element-bound (no gather-latency floor), so the jump scan's
-# lane-count optimum is far below the TPU default of 4096: the measured
-# sweep at 20 Mchars bottoms at 1024 (24 s; 256->34 s, 8192->102 s).
+# lane-count optimum is far below the accelerator default of 4096: a CPU
+# sweep at 20 Mchars bottomed at 1024 (24 s; 256->34 s, 8192->102 s).
 AUTO_CPU_JUMP_LANES = 1024
 
 
@@ -705,26 +714,17 @@ def _probe_cached(cfg, x_aug, sx, ref_path, coll_path):
 def _resolve_backend(backend: str, coll_chars: int | None = None,
                      x_aug=None, sx=None, cfg=None,
                      ref_path=None, coll_path=None) -> str:
-    """auto dispatch (VERDICT r03 item 3 divergence probe included):
+    """auto dispatch, with the divergence probe:
 
     * accelerator + LOW divergence (k-mer absence below
       cfg.probe_threshold, engine/probe.py) -> the native PLCP-skip scan
-      engine: this regime is sequential-latency-bound and a single
-      OpenMP-threaded core beats any lane-parallel device formulation
-      (measured: device jump needs ~15 ms per lane wave vs the
-      reference's 25 Mchars/s at 0.1% SNP);
+      engine: this regime is sequential-latency-bound, and an
+      OpenMP-threaded scan is expected to beat the lane-parallel device
+      formulations (the crossover awaits an H100 measurement);
     * accelerator otherwise -> dense (joint sort, divergence-insensitive);
     * CPU-only -> native when the toolchain built the scan engine, else
       the jump XLA scan; tiny inputs -> native/host (dispatch overheads
-      dominate any device path below the crossover).
-
-    The pallas Mosaic kernel was RETIRED in round 5 (VERDICT r4 item 6):
-    the 2026-08-19 hardware probes showed this toolchain caps
-    ``tpu.dynamic_gather`` at a 128-lane extent, so the kernel could
-    never compile on the chip (docs/pallas_ms_kernel.md §hardware
-    verdict; the source is preserved at docs/retired_pallas_scan.py).
-    Its block-tree PSV/NSV semantics live on in ops/ms_jump.py and
-    native/cmsbwt_scan.cpp."""
+      dominate any device path below the crossover)."""
     if backend != "auto":
         return backend
 
@@ -734,12 +734,7 @@ def _resolve_backend(backend: str, coll_chars: int | None = None,
 
     if coll_chars is not None and coll_chars < AUTO_DENSE_MIN_CHARS:
         return "native" if _native_ok() else "host"
-    try:
-        import jax
-        accel = any(d.platform != "cpu" for d in jax.devices())
-    except Exception:
-        return "native" if _native_ok() else "host"
-    if accel:
+    if _on_accelerator():
         if (x_aug is not None and sx is not None and cfg is not None
                 and _native_ok()):
             frac = _probe_cached(cfg, x_aug, sx, ref_path, coll_path)
@@ -756,11 +751,8 @@ def _build_host_index_fast(x_aug: np.ndarray) -> ReferenceIndex:
     on disk by the caller (cfg.index_cache_dir), so steady-state runs skip
     the build entirely."""
     if _on_accelerator():
-        try:
-            from ..index.device import build_device_index
-            return _export_device_index(build_device_index(x_aug), x_aug)
-        except Exception:
-            pass
+        from ..index.device import build_device_index
+        return _export_device_index(build_device_index(x_aug), x_aug)
     return build_reference_index(x_aug)
 
 

@@ -1,6 +1,6 @@
 """Divergence probe for backend auto-dispatch.
 
-The CMS-BWT workload has two perf regimes (VERDICT r02/r03; ref
+The CMS-BWT workload has two perf regimes (ref
 ``CMS-BWT-functions.cpp:381-395``):
 
 * LOW divergence (pangenome-like, ~0.1% SNP): phrases are long, the
@@ -16,9 +16,10 @@ The CMS-BWT workload has two perf regimes (VERDICT r02/r03; ref
 The probe estimates divergence WITHOUT an index: the fraction of sampled
 collection k-mers absent from the reference's k-mer set.  With SNP rate
 s and k-mer length k, the absent fraction is ~1-(1-s)^k (k=24: 0.1% SNP
--> ~2.4%, 1% -> ~21%, 5% -> ~71%).  The default threshold 0.72 sits at
-the measured native/dense crossover (~5-6% SNP at the 20 Mchar primary
-shape; see config.probe_threshold).  Cost: one pass over the reference
+-> ~2.4%, 1% -> ~21%, 5% -> ~71%).  The default threshold 0.72 (~5-6%
+SNP at the 20 Mchar primary shape) is where the native and dense engines
+were expected to cross; it awaits an H100 measurement (see
+config.probe_threshold).  Cost: one pass over the reference
 plus a 65536-sample gather — a few hundred ms at an 8 Mbp cap, charged
 once per (reference, collection) pair (results are stamp-cached).
 """

@@ -4,8 +4,8 @@
 Everything is jit-compiled with static shapes:
 
 * suffix array: Manber–Myers prefix doubling; each round is one
-  ``jax.lax.sort`` over (rank, rank[i+k]) key pairs — XLA's sort maps onto
-  the TPU sort unit; converged rounds are skipped with ``lax.cond``.
+  ``jax.lax.sort`` over (rank, rank[i+k]) key pairs; converged rounds are
+  skipped with ``lax.cond``.
 * rank history: kept in a [LEVELS, n] int32 buffer; LCP is computed by
   binary-lifting window-rank comparisons over that history (no sequential
   Kasai dependency — fully parallel across SA-adjacent pairs).
@@ -23,8 +23,8 @@ import numpy as np
 
 
 def _dense_rank(vals: jnp.ndarray) -> jnp.ndarray:
-    """Dense rank (ties share rank) of an int array — sort-based (no
-    scatter; TPU scatters serialize)."""
+    """Dense rank (ties share rank) of an int array — sort-based, no
+    scatter."""
     n = vals.shape[0]
     idx = jnp.arange(n, dtype=jnp.int32)
     sv, order = jax.lax.sort((vals, idx), num_keys=1)
@@ -50,8 +50,8 @@ def suffix_array_device(x: jnp.ndarray, n: int
 
     Each doubling round is two lax.sorts: one by (rank, rank[i+k]) and one
     to invert the resulting permutation. Sorts replace all O(n) random
-    scatters — on TPU a sort runs ~5x faster than an n-element scatter
-    (scatters serialize at tens of M elem/s).
+    scatters (whether a direct scatter is cheaper on the GPU awaits
+    measurement).
     """
     levels = n_levels(n)
     idx = jnp.arange(n, dtype=jnp.int32)

@@ -380,7 +380,7 @@ def byte8_lcp(pa, pb):
     (int64, first char in the high byte). Two symbols match iff their
     bytes are equal AND neither is a special (bytes 2/255): distinct
     suffixes never share a special instance, so a special always ends the
-    match. Pure VPU byte unpacking — no table gathers."""
+    match. Elementwise byte unpacking — no table gathers."""
     with jax.enable_x64(True):
         out = jnp.zeros(pa.shape, jnp.int32)
         eq_so_far = jnp.ones(pa.shape, bool)

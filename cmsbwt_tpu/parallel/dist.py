@@ -243,14 +243,18 @@ def _bucket_offsets(dest, n_shards: int):
     """Per-row offset within its destination bucket (dest values in
     [0, n_shards]; n_shards = dropped rows, offset 0)."""
     order = jnp.argsort(dest, stable=True)
-    inv = jnp.argsort(order, stable=True)
     dsorted = dest[order]
     first = jnp.searchsorted(dsorted, jnp.arange(n_shards))
     offs_sorted = jnp.where(
         dsorted < n_shards,
         jnp.arange(dest.shape[0]) - first[jnp.minimum(dsorted,
                                                       n_shards - 1)], 0)
-    return offs_sorted[inv]
+    # back to row order by scattering through the permutation (unique
+    # indices). An argsort of ``order`` computes the same, but XLA's GPU
+    # permutation-sort simplifier turns an int64 one into an ill-typed
+    # scatter that the HLO verifier rejects.
+    return jnp.zeros_like(offs_sorted).at[order].set(offs_sorted,
+                                                     unique_indices=True)
 
 
 def dgather(vals, q, oob_val, local_v: int, n_shards: int):

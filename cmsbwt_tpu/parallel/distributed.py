@@ -1,9 +1,10 @@
 """Multi-process (multi-host) scaffolding: ``jax.distributed`` bring-up.
 
-On a real pod slice each host process calls :func:`maybe_initialize` before
-any JAX use; the global mesh returned by ``parallel.mesh.make_mesh`` then
-spans every process's devices and the wave program's collectives
-(``ppermute`` chain shift, ``psum`` wave health) ride ICI/DCN. The
+On a multi-host cluster each host process calls :func:`maybe_initialize`
+before any JAX use; the global mesh returned by ``parallel.mesh.make_mesh``
+then spans every process's devices and the wave program's collectives
+(``ppermute`` chain shift, ``psum`` wave health) ride the device
+interconnect and the network between hosts. The
 reference has no distributed mechanism at all (SURVEY.md §5 last row); its
 closest analogue is the ``.phrases`` disk spill that this pipeline's
 per-block head exchange generalizes (ref CMS-BWT-functions.cpp:1135-1416).

@@ -216,7 +216,7 @@ def _dist_suffix_sort(s_vals, length, lh: int, R: int, rounds: int):
     symbols above every real one, so they resolve immediately and sort to
     the top — same convention as device_merge.head_string_sa_dev).
 
-    Early convergence (VERDICT r4 item 2): once every rank is distinct
+    Early convergence: once every rank is distinct
     the string is fully sorted, and the remaining doubling rounds are
     skipped via lax.cond on a REPLICATED done flag (derived from a psum,
     so every shard takes the same branch and the collective schedules
@@ -774,12 +774,16 @@ def merge_heads_sharded(head_t, head_pos, head_len, head_smaller,
                 D.shard(mesh, np.asarray(ref_isa, np.int64)[:n], 0, ln_),
                 D.shard(mesh, np.asarray(ref_bwt, np.int64)[:n], 0, ln_),
             ]
-        scal = jnp.asarray([h, n, sn, d], jnp.int64)
+        # replicated over the mesh, as the prewarm lowers it: a scalar
+        # vector left on one device lowers to a different program, and the
+        # dispatch would compile stage A a second time
+        scal = jax.device_put(jnp.asarray([h, n, sn, d], jnp.int64),
+                              NamedSharding(mesh, P()))
         rounds = 1
         while (1 << rounds) < max(lh * R, 2):
             rounds += 1
 
-        # prewarm (VERDICT r4 items 2/7): stage A and the runs stage have
+        # prewarm: stage A and the runs stage have
         # shapes fully known at entry — compile them concurrently on the
         # background threads while the uploads land (the pair-dependent
         # good/exact stages stay dispatch-compiled; their shapes need

@@ -3,9 +3,8 @@
 Every hot-path upload/download goes through these (or device_put /
 device_get directly) so the production pipelines run clean under
 ``jax.transfer_guard("disallow")``: an implicit transfer on an O(sn)
-array would silently serialize on the ~33 MB/s host link, and an
-implicit scalar transfer inside a dispatch loop adds a blocking
-round-trip per call. ``tests/test_transfer_guard.py`` enforces the
+array would silently serialize on the host link, and an implicit scalar
+transfer inside a dispatch loop adds a blocking round trip per call. ``tests/test_transfer_guard.py`` enforces the
 invariant (SURVEY §5 race-detection/sanitizer row)."""
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 // Native runtime IO for cmsbwt_tpu: streaming collection parser and output
 // writers. These are the host-side runtime components that the reference
 // implements in C++ (parsing: /root/reference/CMS-BWT-functions.cpp:344-559,
-// writers: :939-1085); the TPU compute path stays in JAX — this module keeps
+// writers: :939-1085); the device compute path stays in JAX — this module keeps
 // the O(file) byte shuffling off the Python interpreter.
 //
 // Exposed as a C ABI consumed via ctypes (no pybind11 in the image).

@@ -43,7 +43,7 @@ def _ckpt_writer(ckdir, q):
 
 def test_checkpoint_concurrent_writers(tmp_path):
     """Concurrent processes saving the same slot must not crash
-    (VERDICT r4 weakness #1: shared fixed tmp path raced under -n auto)."""
+    (a shared fixed tmp path raced under -n auto)."""
     import multiprocessing as mp
     import os
 

@@ -131,3 +131,22 @@ def test_dsort_two_keys(seed, dup):
     np.testing.assert_array_equal(
         np.sort(gp[:nv]), np.sort(pay[:nv]))
     assert (g0[nv:] == KMAX).all()
+
+
+@pytest.mark.parametrize("n_shards, rows", [(4, 37), (8, 200), (3, 1)])
+def test_bucket_offsets_matches_rank_within_group(n_shards, rows):
+    """Offset of each row within its destination bucket, in row order;
+    rows bound for the drop bucket (dest == n_shards) get offset 0. Runs
+    under x64, the width of the mesh exchanges."""
+    rng = np.random.default_rng(n_shards * 1000 + rows)
+    dest = rng.integers(0, n_shards + 1, rows).astype(np.int32)
+    want = np.zeros(rows, np.int64)
+    seen = {}
+    for i, d in enumerate(dest):
+        if d < n_shards:
+            want[i] = seen.get(d, 0)
+            seen[d] = want[i] + 1
+    with jax.enable_x64(True):
+        got = jax.jit(D._bucket_offsets, static_argnums=1)(
+            jnp.asarray(dest), n_shards)
+        np.testing.assert_array_equal(np.asarray(got), want)

@@ -1,4 +1,4 @@
-"""Two actual processes (VERDICT r4 item 5): a jax.distributed CPU
+"""Two actual processes: a jax.distributed CPU
 cluster (localhost coordinator, 2 processes x 4 virtual devices) runs the
 mesh scan + the sharded merge across the process boundary, and the result
 must be byte-equal to the single-process engine.

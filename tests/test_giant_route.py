@@ -56,7 +56,7 @@ def test_giant_route_rejects_int32_backends(tmp_path, monkeypatch):
 
 def test_giant_route_uses_native_engine(tmp_path, monkeypatch):
     """The >2^31 route runs the native int64 scan engine, not the numpy
-    spec loop (VERDICT r03 item 5)."""
+    spec loop."""
     from cmsbwt_tpu.io.native import get_scan_lib
     if get_scan_lib() is None:
         pytest.skip("no native toolchain")

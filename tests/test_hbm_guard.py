@@ -70,3 +70,62 @@ def test_hbm_guard_blocks_oversized_scan(tmp_path, monkeypatch):
     compute_bwt(cfg2)
     assert (tmp_path / "a.bwt").read_bytes() == \
         (tmp_path / "b.bwt").read_bytes()
+
+
+class _FakeDevice:
+    platform = "gpu"
+
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("stats, env, want", [
+    ({"bytes_limit": 60 << 30, "bytes_in_use": 0}, None,
+     0.85 * (60 << 30)),
+    ({"bytes_limit": 60 << 30, "bytes_in_use": 10 << 30}, None,
+     0.85 * (50 << 30)),
+    ({"bytes_limit": 60 << 30}, "2", float(2 << 30)),
+    (None, "2", float(2 << 30)),
+    (None, None, None),
+    ({"bytes_in_use": 0}, None, None),
+])
+def test_memory_budget_from_device(monkeypatch, stats, env, want):
+    """The guard's budget is a share of the device's free bytes
+    (bytes_limit less bytes_in_use) unless CMSBWT_HBM_GB overrides it; a
+    device that reports no limit gives no budget."""
+    import jax
+    from cmsbwt_tpu.engine import pipeline as pl
+    monkeypatch.setattr(jax, "devices", lambda *a: [_FakeDevice(stats)])
+    if env is None:
+        monkeypatch.delenv("CMSBWT_HBM_GB", raising=False)
+    else:
+        monkeypatch.setenv("CMSBWT_HBM_GB", env)
+    assert pl._device_memory_budget() == want
+
+
+def test_guard_block_size():
+    """No budget or a budget that holds the joint string: unblocked.
+    Over the budget: blocks of at least 8 Mi symbols, larger for a larger
+    budget."""
+    from cmsbwt_tpu.engine import pipeline as pl
+    n, sn = 5_000_000, 100_000_000
+    per = pl.BYTES_PER_SYMBOL
+    assert pl._guard_block_chars(n, sn, None) is None
+    assert pl._guard_block_chars(n, sn, 10.0 * per * (n + sn)) is None
+    small = pl._guard_block_chars(n, sn, 1.0)
+    assert small == 8 << 20
+    mid = pl._guard_block_chars(n, sn, 0.5 * per * (n + sn))
+    assert 8 << 20 < mid < sn
+
+
+def test_cpu_backend_forces_no_blocking(monkeypatch):
+    """On the CPU backend (no bytes_limit) the dense scan runs unblocked
+    however large the input looks."""
+    from cmsbwt_tpu.engine import pipeline as pl
+    monkeypatch.delenv("CMSBWT_HBM_GB", raising=False)
+    assert pl._device_memory_budget() is None
+    assert pl._guard_block_chars(1 << 30, 1 << 32,
+                                 pl._device_memory_budget()) is None

@@ -98,7 +98,7 @@ def test_auto_routes_by_divergence(monkeypatch):
     x_aug = fasta.augment_reference(ref.tobytes())
     cfg = Config()
     import jax
-    accel_devices = [type("D", (), {"platform": "tpu"})()]
+    accel_devices = [type("D", (), {"platform": "gpu"})()]
     monkeypatch.setattr(jax, "devices", lambda *a: accel_devices)
     assert pl._resolve_backend("auto", 10_000_000, x_aug=x_aug,
                                sx=sx_low, cfg=cfg) == "native"

@@ -145,17 +145,3 @@ def test_parity_dense_backend(tmp_path, ref_bin):
         assert (tmp_path / ("ours" + ext)).read_bytes() == \
             (tmp_path / ("ref" + ext)).read_bytes()
 
-
-def test_pallas_backend_retired(tmp_path):
-    """backend='pallas' was retired (VERDICT r4 item 6: the Mosaic kernel
-    cannot compile on the chip); requesting it must fail loudly with a
-    pointer at the surviving kernels."""
-    import pytest
-    rng = np.random.default_rng(13)
-    ref = random_dna(rng, 400)
-    docs = [mutate(rng, ref, 0.008) for _ in range(2)]
-    lst, _, _ = make_inputs(tmp_path, ref, docs)
-    cfg = Config(filename=str(lst), outname=str(tmp_path / "ours"),
-                 backend="pallas")
-    with pytest.raises(ValueError, match="retired"):
-        compute_bwt(cfg)

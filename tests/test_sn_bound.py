@@ -2,7 +2,7 @@
 (ref CMS-BWT.h:26,46), but our device scans/merge are int32-keyed. At/above
 the bound, compute_bwt must route through the int64-safe path (blocked
 dense scan + host merge) — never silently truncate. Exercised at toy scale
-via the CMSBWT_SN_BOUND override (VERDICT r2 item 4)."""
+via the CMSBWT_SN_BOUND override."""
 import numpy as np
 import pytest
 

@@ -3,11 +3,10 @@
 Runs the mesh-native dense scan (parallel/mesh.py) and the sharded merge
 (parallel/sharded_merge.py) on the SAME workload at 1/2/4/8 virtual CPU
 devices and reports per-device throughput + scaling efficiency vs the
-1-device run. On this host the virtual devices share 4 physical cores,
-so the numbers measure the HARNESS (collective/overhead share of the
-sharded formulation), not real chip scaling — the report exists so a
-real multi-chip slice produces the BASELINE north-star efficiency table
-by running this same script (BASELINE.md: >=80% scaling efficiency).
+1-device run. The virtual devices share the host's cores, so the numbers
+measure the HARNESS (the collective/overhead share of the sharded
+formulation), not the scaling of real devices; it is a rehearsal of the
+mesh paths, not a device measurement.
 
 Usage: python tools/scaling_report.py [out.json]
 """
@@ -53,7 +52,7 @@ def main():
     n = len(x_aug)
     d = int((sx == 2).sum())
     rows = []
-    base_tput = None
+    base_rate = None
     for nd in (1, 2, 4, 8):
         mesh = make_mesh(nd)
         block = max(64, -(-sn // nd))
@@ -73,21 +72,22 @@ def main():
             res.h, n, res.sn, d, False, n_devices=nd)
         merge_s = time.time() - t0
         total = scan_s + merge_s
-        tput = sn / 1e6 / total
-        per_dev = tput / nd
-        if base_tput is None:
-            base_tput = tput
-        eff = tput / (base_tput * nd)
+        rate = sn / 1e6 / total
+        per_dev = rate / nd
+        if base_rate is None:
+            base_rate = rate
+        eff = rate / (base_rate * nd)
         rows.append(dict(n_devices=nd, scan_s=round(scan_s, 3),
                          merge_s=round(merge_s, 3),
-                         tput_mchars_s=round(tput, 3),
+                         tput_mchars_s=round(rate, 3),
                          per_device_mchars_s=round(per_dev, 3),
                          scaling_efficiency=round(eff, 3)))
         print(f"# nd={nd} scan={scan_s:.2f}s merge={merge_s:.2f}s "
-              f"tput={tput:.2f} M/s eff={eff:.2f}", file=sys.stderr)
+              f"rate={rate:.2f} M/s eff={eff:.2f}", file=sys.stderr)
     out = dict(kind="virtual_cpu_mesh_scaling", sn=sn, n=n,
-               note="virtual devices share 4 physical cores; measures the "
-                    "sharded formulation's overhead share, not chip scaling",
+               note="virtual devices share the host's cores; measures the "
+                    "sharded formulation's overhead share, not device "
+                    "scaling",
                rows=rows)
     print(json.dumps(out))
     if len(sys.argv) > 1:
